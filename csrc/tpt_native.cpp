@@ -1,7 +1,7 @@
 // Native runtime components for tinypathtracer_tpu.
 //
 // The reference implements its entire host runtime in C++ (scene
-// loading mesh.cu, image decode picture.h, BVH build bvh.cu). The TPU
+// loading mesh.cu, image decode picture.h, BVH build bvh.cu). This
 // framework keeps the device compute path in XLA, and provides the
 // host-side runtime roles natively here:
 //

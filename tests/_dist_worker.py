@@ -1,10 +1,10 @@
 """Worker process for the 2-process CPU loopback test (multi-host
-analogue without TPU hardware). Spawned by tests/test_distributed.py:
+analogue without a second machine). Spawned by tests/test_distributed.py:
 
     python tests/_dist_worker.py <port> <rank>
 
 Each process gets 4 virtual CPU devices; jax.distributed stitches them
-into one 8-device cluster over loopback TCP (the DCN stand-in). Prints
+into one 8-device cluster over loopback TCP. Prints
 one JSON result line prefixed RESULT:.
 """
 
@@ -39,7 +39,7 @@ def main():
 
     mesh = global_mesh(n_sample=2)   # (data=4, sample=2) global mesh
 
-    # --- plain psum across the whole cluster (rides loopback DCN) ----
+    # --- plain psum across the whole cluster (over loopback) ----
     local = np.arange(local_dev, dtype=np.float32) + 10.0 * rank
     garr = jax.make_array_from_process_local_data(
         NamedSharding(mesh, P(("data", "sample"))),
@@ -53,12 +53,13 @@ def main():
     tot = float(total(garr))
 
     # --- sharded gradient step over the full framework path ----------
-    from tinypathtracer_tpu import RenderConfig, load_scene
+    from tinypathtracer_tpu import RenderConfig
     from tinypathtracer_tpu.diff.invrender import Params, make_sharded_train_step
     from tinypathtracer_tpu.models.envlight import gradient_sky
+    from tinypathtracer_tpu.models.procedural import sphere_grid_scene
 
-    flat = load_scene("/root/reference/input/tir.gltf").flatten(
-        env_radiance=gradient_sky(4, 8))
+    flat = sphere_grid_scene(grid=1, n_lat=4, n_lon=8,
+                             env_radiance=np.asarray(gradient_sky(4, 8)))
     cfg = RenderConfig(width=8, height=8, spp=2, max_depth=2,
                        intersector="dense", tile_pixels=16)
     params = Params.from_scene(flat)
@@ -75,9 +76,8 @@ def main():
     # --- timed fixed-total-workload step (scaling-efficiency probe) --
     # Same 8-device global mesh whether 1 or 2 processes own it, so the
     # compute is identical and the 1-vs-2-process wall-clock ratio
-    # isolates the cross-process (loopback-DCN) overhead of the
-    # gradient-psum path. BASELINE.md records this as the honest CPU
-    # stand-in for the >= 85% two-host scaling target.
+    # isolates the cross-process (loopback) overhead of the
+    # gradient-psum path.
     import time
 
     def time_step(cfg_t):
@@ -99,8 +99,7 @@ def main():
                                   intersector="dense", tile_pixels=256))
     # 16x the ray work: if efficiency recovers here, the small-step
     # deficit is fixed per-step cross-process latency (dispatch +
-    # barrier on loopback TCP), not payload-proportional comm -- the
-    # diagnosis VERDICT r4 weak #5 asks for
+    # barrier on loopback TCP), not payload-proportional comm
     best_big = time_step(RenderConfig(width=96, height=96, spp=16,
                                       max_depth=3, intersector="dense",
                                       tile_pixels=256))

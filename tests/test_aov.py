@@ -10,15 +10,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tinypathtracer_tpu import load_scene, RenderConfig
-from tinypathtracer_tpu.models.envlight import gradient_sky
+from tinypathtracer_tpu import RenderConfig
 from tinypathtracer_tpu.render.aov import AOV_KINDS, render_aov_jit
 
 
 @pytest.fixture(scope="module")
-def box_flat():
-    return load_scene("/root/reference/input/box.gltf").flatten(
-        env_radiance=gradient_sky(8, 16))
+def box_flat(make_room):
+    return make_room()
 
 
 @pytest.mark.parametrize("kind", AOV_KINDS)
@@ -30,7 +28,7 @@ def test_aov_smoke(box_flat, kind):
     assert img.shape == (32, 32, 3)
     assert np.isfinite(img).all()
     assert img.min() >= 0.0 and img.max() <= 1.0
-    # the camera looks into the box: most pixels hit something
+    # the camera is inside the closed room: most pixels hit something
     assert (img.sum(-1) > 0).mean() > 0.3
 
 
@@ -45,8 +43,7 @@ def test_hitmask_values(box_flat):
 
 
 def test_normal_aov_is_abs_normal(box_flat):
-    """Walls of the Cornell box are axis-aligned: their |normal| AOV
-    must be an axis unit vector (one channel ~1, others ~0)."""
+    """The |normal| AOV is a unit vector wherever something was hit."""
     cfg = RenderConfig(width=16, height=16, spp=1, max_depth=1,
                        intersector="dense")
     img = np.asarray(render_aov_jit(box_flat, cfg, jax.random.PRNGKey(2),

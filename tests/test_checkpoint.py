@@ -7,15 +7,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tinypathtracer_tpu import load_scene, RenderConfig, Renderer
-from tinypathtracer_tpu.models.envlight import gradient_sky
+from tinypathtracer_tpu import RenderConfig, Renderer
 from tinypathtracer_tpu.utils import checkpoint as ckpt
 
 
 @pytest.fixture(scope="module")
-def flat():
-    return load_scene("/root/reference/input/box.gltf").flatten(
-        env_radiance=gradient_sky(8, 16))
+def flat(make_room):
+    return make_room()
 
 
 def test_pytree_roundtrip(tmp_path, flat):

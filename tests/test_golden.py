@@ -21,8 +21,12 @@ GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 SCENES = ["box", "box1", "box2", "ball", "square", "tir", "light"]
 
 
+# The reference's glTF scenes; not in the repository yet (ROADMAP R1).
+SCENE_DIR = os.path.join(os.path.dirname(__file__), "scenes")
+
+
 def _render(name):
-    scene = load_scene(f"/root/reference/input/{name}.gltf")
+    scene = load_scene(os.path.join(SCENE_DIR, f"{name}.gltf"))
     flat = scene.flatten(env_radiance=gradient_sky(16, 32))
     cfg = RenderConfig(width=64, height=64, spp=4, max_depth=4,
                        intersector="bvh", tile_pixels=64 * 64)

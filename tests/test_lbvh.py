@@ -105,12 +105,12 @@ def test_traversal_matches_bruteforce(n, seed):
                                np.asarray(uv_bf)[~diff & hit], atol=1e-4)
 
 
-def test_traversal_on_box_scene(box_scene):
-    flat = box_scene.flatten()
+def test_traversal_on_box_scene(make_room):
+    flat = make_room()
     wv, _ = flat.world_geometry()
     tris = wv[flat.indices]
     bvh = build_lbvh(tris)
-    # rays from inside the box: almost every direction hits a wall
+    # rays from inside the closed room: every direction hits something
     o, d = random_rays(512, seed=7)
     o = jnp.asarray(np.array([[0.0, 1.0, 0.0]], np.float32)) + 0.0 * o
     f_bvh, t_bvh, _ = closest_hit_bvh(o, d, bvh)
@@ -136,12 +136,10 @@ def test_jit_build_and_traverse():
     np.testing.assert_array_equal(np.asarray(fid) >= 0, np.asarray(f_bf) >= 0)
 
 
-def test_host_bvh_source_matches_device(box_scene):
-    import jax
+def test_host_bvh_source_matches_device(make_room):
     from tinypathtracer_tpu import RenderConfig, Renderer
-    from tinypathtracer_tpu.models.envlight import gradient_sky
 
-    flat = box_scene.flatten(env_radiance=gradient_sky(8, 16))
+    flat = make_room()
     kw = dict(width=24, height=24, spp=2, max_depth=2,
               intersector="bvh", tile_pixels=24 * 24)
     key = jax.random.PRNGKey(0)

@@ -5,15 +5,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tinypathtracer_tpu import load_scene, RenderConfig, Renderer
+from tinypathtracer_tpu import RenderConfig, Renderer
 from tinypathtracer_tpu.models.envlight import (
     build_env_tables, env_lookup, gradient_sky, sample_env)
 
 
 @pytest.fixture(scope="module")
-def flat():
-    scene = load_scene("/root/reference/input/ball.gltf")
-    return scene.flatten(env_radiance=gradient_sky(16, 32))
+def flat(make_room):
+    return make_room(point_light=True, env=(16, 32))
 
 
 def test_env_sampling_unbiased():

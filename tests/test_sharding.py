@@ -5,17 +5,15 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tinypathtracer_tpu import load_scene, RenderConfig
-from tinypathtracer_tpu.models.envlight import gradient_sky
+from tinypathtracer_tpu import RenderConfig
 from tinypathtracer_tpu.parallel import mesh as mesh_mod
 from tinypathtracer_tpu.parallel.shard import render_frame_sharded
 from tinypathtracer_tpu.render.renderer import render_frame
 
 
 @pytest.fixture(scope="module")
-def flat():
-    scene = load_scene("/root/reference/input/box.gltf")
-    return scene.flatten(env_radiance=gradient_sky(8, 16))
+def flat(make_room):
+    return make_room()
 
 
 def test_device_count():

@@ -52,16 +52,12 @@ def test_comb_tree_is_deep():
     assert depth > 20, f"expected a degenerate comb, got depth {depth}"
 
 
-def test_renderer_refuses_overflowing_stack():
+def test_renderer_refuses_overflowing_stack(make_room):
     from tinypathtracer_tpu import RenderConfig, Renderer
-    from tinypathtracer_tpu.models.scene import FlatScene, Scene
-    from tinypathtracer_tpu.models.envlight import gradient_sky
-    from tinypathtracer_tpu import load_scene
 
-    # graft the comb geometry into a renderable scene via a real glTF
-    # flatten, then overwrite its vertices/indices
-    flat = load_scene("/root/reference/input/tir.gltf").flatten(
-        env_radiance=gradient_sky(4, 8))
+    # graft the comb geometry into a renderable scene, overwriting its
+    # vertices/indices
+    flat = make_room(grid=0, env=(4, 8))
     tris = np.asarray(_comb_scene())
     import dataclasses
     f = tris.shape[0]

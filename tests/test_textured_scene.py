@@ -131,12 +131,8 @@ def test_textured_render_shows_checker(quad_flat):
     assert w.std() / (w.mean() + 1e-9) < 0.25   # whiteish
 
 
-def test_untextured_scene_is_static_noop():
-    from tinypathtracer_tpu import load_scene
-    from tinypathtracer_tpu.models.envlight import gradient_sky
-
-    flat = load_scene("/root/reference/input/box.gltf").flatten(
-        env_radiance=gradient_sky(4, 8))
+def test_untextured_scene_is_static_noop(make_room):
+    flat = make_room(env=(4, 8))
     assert not flat.has_textures
     assert flat.tex_atlas.shape == (1, 1, 1, 3)
     assert (np.asarray(flat.mtl_tex_id) == -1).all()
@@ -166,53 +162,6 @@ def test_texel_gradients_match_fd(quad_flat):
         lm = loss(Params(**{**params.__dict__, "tex_atlas": atlas_m}))
         fd = (float(lp) - float(lm)) / (2 * eps)
         np.testing.assert_allclose(g[t, y, x, c], fd, rtol=5e-2, atol=1e-5)
-
-
-# ---------------------------------------------------------------------------
-# Round-5: textured scenes on the megakernel fast path (hits-only
-# kernel + shading-only stored replay, ops/mega.py)
-# ---------------------------------------------------------------------------
-
-def test_mega_textured_bit_identical(quad_flat):
-    """A textured scene routed through the mega path must render
-    bit-identically to the modular pipeline: the kernel contributes
-    only hit residuals; radiance comes from the same shading math."""
-    import dataclasses
-
-    cfg = RenderConfig(width=16, height=16, spp=4, max_depth=2,
-                       intersector="dense")
-    key = jax.random.PRNGKey(3)
-    a = np.asarray(Renderer(dataclasses.replace(
-        cfg, mega_impl="interpret")).render(quad_flat, key))
-    b = np.asarray(Renderer(dataclasses.replace(
-        cfg, megakernel=False)).render(quad_flat, key))
-    assert np.array_equal(a, b), f"maxdiff {np.abs(a - b).max()}"
-
-
-def test_mega_textured_grads_match_modular(quad_flat):
-    """Texel / albedo / env gradients through the textured mega path
-    equal the modular pipeline's exactly (same replayed shading graph,
-    hits are bit-identical constants)."""
-    import dataclasses
-
-    from tinypathtracer_tpu.diff.invrender import Params, mse_loss
-
-    cfg = RenderConfig(width=10, height=10, spp=2, max_depth=2,
-                       intersector="dense")
-    key = jax.random.PRNGKey(7)
-    target = jnp.zeros((10, 10, 3), jnp.float32)
-    params = Params.from_scene(quad_flat)
-
-    g_a = jax.grad(lambda p: mse_loss(
-        p, quad_flat, dataclasses.replace(cfg, mega_impl="interpret"),
-        target, key))(params)
-    g_b = jax.grad(lambda p: mse_loss(
-        p, quad_flat, dataclasses.replace(cfg, megakernel=False),
-        target, key))(params)
-    for la, lb in zip(jax.tree_util.tree_leaves(g_a),
-                      jax.tree_util.tree_leaves(g_b)):
-        np.testing.assert_allclose(np.asarray(la), np.asarray(lb),
-                                   rtol=1e-5, atol=1e-8)
 
 
 # ---------------------------------------------------------------------------

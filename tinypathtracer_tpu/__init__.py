@@ -1,7 +1,7 @@
-"""tinypathtracer_tpu: a TPU-native differentiable path tracer.
+"""tinypathtracer_tpu: a differentiable wavefront path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-Cyruscxy/TinyPathTracer (CUDA/Vulkan, see /root/reference): glTF scene
+Cyruscxy/TinyPathTracer (CUDA/Vulkan): glTF scene
 loading, LBVH acceleration structures, multi-bounce Monte-Carlo shading
 with delta + HDR environment lights, and textured materials -- built as
 batched, jit-compiled array programs instead of divergent per-thread

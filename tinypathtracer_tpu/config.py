@@ -9,8 +9,6 @@ static jit arguments, plus a CLI in tools/render_cli.py.
 from __future__ import annotations
 
 import dataclasses
-import os
-from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,26 +29,20 @@ class RenderConfig:
     # "physical" is the physically-correct estimator.
     mode: str = "reference"
     # Intersection backend: "dense" (default) tests every ray against
-    # every triangle as tiled [rays x tris] VPU work with hoisted Woop
-    # transforms -- a Pallas kernel on TPU, the fastest path for the
-    # scene sizes the reference ships (ops/dense.py), and auto-routes
-    # to "packet" above 8k padded faces (renderer.resolve_intersector,
-    # the measured crossover in BASELINE.md); "packet" forces the
-    # 8-ray-packet near-to-far chunk traversal (ops/packet.py) --
-    # sublinear per-query work, the large-scene fast path;
-    # "bruteforce" is the plain Moller-Trumbore oracle; "bvh" the
-    # binary LBVH lockstep tree walk (correctness oracle for the LBVH
-    # build -- measured 100-500x off the chip's pace, not a production
-    # path).
+    # every triangle with hoisted Woop transforms -- a Triton kernel on
+    # the GPU (ops/dense.py); "bvh" is the binary LBVH stack walk
+    # (ops/traverse.py); "bruteforce" is the plain Moller-Trumbore
+    # oracle. renderer.resolve_intersector routes "dense" requests.
     intersector: str = "dense"
     # (pixel, sample) lanes are flattened and processed in dispatch
     # chunks of up to this many rays: large chunks amortize per-bounce
     # glue and give the intersection kernel its biggest batch; the cap
     # bounds live ray-state memory (~100 B/ray). The analogue of the
-    # reference's 16x16 CUDA blocks, sized for HBM instead of warps.
+    # reference's 16x16 CUDA blocks, sized for device memory.
     rays_per_dispatch: int = 1 << 20
-    # Deprecated (round-1 pixel tiling); kept so existing callers don't
-    # break. Chunking is controlled by rays_per_dispatch now.
+    # Pixel tile of the sharded paths: each data shard renders a whole
+    # number of tiles (parallel/shard.py). Single-device chunking is
+    # controlled by rays_per_dispatch.
     tile_pixels: int = 16384
     # Fixed traversal stack depth per ray (reference uses 64,
     # path_tracer.cu:64); LBVH depth for sorted morton codes is ~2*log2(n).
@@ -78,90 +70,22 @@ class RenderConfig:
     # the reference's mip build (texture.cu:90-154) was for but never
     # configured. Texel gradients flow through either path.
     tex_filter: str = "point"
-    # Fuse the whole reference-mode bounce loop into one Pallas program
-    # per ray block (ops/mega.py) when the scene qualifies (untextured,
-    # <= 8192 padded faces) and the backend is TPU. Images are
-    # bit-identical to the modular pipeline (same RNG streams, same hit
-    # arithmetic; delta-light scenes differ by FMA-contraction ulps
-    # only); gradients replay the modular path. Set False to force the
-    # modular per-bounce pipeline everywhere.
-    megakernel: bool = True
-    # Megakernel tuning knobs (ops/mega.py). These are REAL config
-    # fields (not trace-time env reads) so they participate in the jit
-    # compile key -- flipping an env var after a Renderer's first
-    # render can never silently hit a stale compile (ADVICE r4). The
-    # TPT_MEGA_* env vars remain the default source, read once at
-    # config construction.
-    #   mega_impl: "auto" (mega on TPU when the scene qualifies) |
-    #              "off" | "interpret" (force mega in interpret mode,
-    #              for CPU tests)
-    #   mega_w:    rays per mega grid block (lane width)
-    #   mega_tc:   triangle chunk size (0 = auto _pick_tc)
-    #   mega_gate: "off" | "on" per-chunk slab gates (culling-only)
-    mega_impl: str = dataclasses.field(
-        default_factory=lambda: os.environ.get("TPT_MEGA_IMPL", "auto"))
-    mega_w: int = dataclasses.field(
-        default_factory=lambda: int(os.environ.get("TPT_MEGA_W", "256")))
-    mega_tc: int = dataclasses.field(
-        default_factory=lambda: int(os.environ.get("TPT_MEGA_TC", "0")))
-    mega_gate: str = dataclasses.field(
-        default_factory=lambda: os.environ.get("TPT_MEGA_GATE", "off"))
-    # Packet-traversal tuning knobs (ops/packet.py; production fields
-    # for the same stale-compile reason as the mega knobs). Defaults
-    # are the measured optimum on the 61k-face stress scene
-    # (BASELINE.md round-5 sweep): 512-triangle chunks, 8-ray packets,
-    # 1 visit per select, 16 packet walks interleaved per while_loop.
-    #   packet_tc: triangles per traversal chunk (multiple of 128)
-    #   packet_w:  rays per packet (sublane group)
-    #   packet_k:  chunk visits per select round
-    #   packet_g:  packets interleaved per while_loop (their serial
-    #              select->fetch chains overlap; compile time grows
-    #              with packet_g * (packet_tc/128))
-    packet_tc: int = dataclasses.field(
-        default_factory=lambda: int(os.environ.get("TPT_PACKET_TC", "512")))
-    packet_w: int = dataclasses.field(
-        default_factory=lambda: int(os.environ.get("TPT_PACKET_W", "8")))
-    packet_k: int = dataclasses.field(
-        default_factory=lambda: int(os.environ.get("TPT_PACKET_K", "1")))
-    packet_g: int = dataclasses.field(
-        default_factory=lambda: int(os.environ.get("TPT_PACKET_G", "16")))
-    #   mega_bwd:  "stored" (default) -- the megakernel forward records
-    #              per-bounce hit residuals and the backward replays
-    #              shading math only, zero intersection dispatches;
-    #              "replay" -- round-4 behavior, backward re-traces
-    #              through the modular dense pipeline. Gradients are
-    #              identical (the residuals are bit-identical to the
-    #              dense intersector's reports; tests/test_mega.py).
-    mega_bwd: str = dataclasses.field(
-        default_factory=lambda: os.environ.get("TPT_MEGA_BWD", "stored"))
     # Rematerialize each ray-dispatch chunk in the backward pass.
-    # Reverse-mode through the chunk map saves every chunk's residuals
-    # (~200 B/ray with the stored-hit backward): fine at 512x512@16spp
-    # (16 chunks, <1 GB), but a 1920x1080@64spp frame is 507 chunks
-    # (~24 GB -- over HBM). With remat, only chunk inputs persist and
-    # the backward recomputes each chunk's forward (~+50% step time).
-    # Default off; flip on for frames whose ray count times ~200 B
-    # exceeds a few GB.
-    remat_chunks: bool = dataclasses.field(
-        default_factory=lambda: os.environ.get("TPT_REMAT_CHUNKS",
-                                               "0") == "1")
+    # Reverse-mode through the chunk map saves every chunk's per-bounce
+    # carries; with remat only chunk inputs persist and the backward
+    # recomputes each chunk's forward. Flip on for frames whose saved
+    # carries exceed device memory.
+    remat_chunks: bool = False
 
     def __post_init__(self):
         if self.mode not in ("reference", "physical"):
             raise ValueError(f"unknown mode {self.mode!r}")
-        if self.intersector not in ("dense", "bruteforce", "bvh",
-                                    "packet"):
+        if self.intersector not in ("dense", "bruteforce", "bvh"):
             raise ValueError(f"unknown intersector {self.intersector!r}")
         if self.bvh_source not in ("device", "host"):
             raise ValueError(f"unknown bvh_source {self.bvh_source!r}")
         if self.tex_filter not in ("point", "bilinear"):
             raise ValueError(f"unknown tex_filter {self.tex_filter!r}")
-        if self.mega_impl not in ("auto", "off", "interpret"):
-            raise ValueError(f"unknown mega_impl {self.mega_impl!r}")
-        if self.mega_gate not in ("off", "on", "auto"):
-            raise ValueError(f"unknown mega_gate {self.mega_gate!r}")
-        if self.mega_bwd not in ("stored", "replay"):
-            raise ValueError(f"unknown mega_bwd {self.mega_bwd!r}")
 
     @property
     def n_pixels(self) -> int:

@@ -126,8 +126,8 @@ def make_sharded_train_step(cfg: RenderConfig, mesh: Mesh,
                             project_fn: Optional[Callable] = None):
     """Distributed train step: pixels shard over "data", spp over
     "sample"; per-device gradients are `psum`-averaged over the whole
-    mesh (the all-reduce rides ICI and overlaps with the backward pass
-    under XLA's scheduler), then the optimizer update runs replicated.
+    mesh (XLA's scheduler can overlap the all-reduce with the backward
+    pass), then the optimizer update runs replicated.
 
     Returns a jitted fn (params, opt_state, scene, target, key) ->
     (params, opt_state, loss). `target` is the full [H, W, 3] image.
@@ -156,7 +156,7 @@ def make_sharded_train_step(cfg: RenderConfig, mesh: Mesh,
             return jnp.sum(err)
 
         loss_local, grads = jax.value_and_grad(local_loss)(params)
-        # gradient all-reduce over BOTH mesh axes (ICI), averaged
+        # gradient all-reduce over BOTH mesh axes, averaged
         grads = lax.psum(grads, (DATA_AXIS, SAMPLE_AXIS))
         loss = lax.psum(loss_local, (DATA_AXIS, SAMPLE_AXIS))
         denom = jnp.float32(cfg.n_pixels * 3 * n_sample)

@@ -80,7 +80,7 @@ def env_lookup(env_radiance, dirs):
     u, v = dir_to_uv(jax.lax.stop_gradient(dirs))
     col = jnp.clip((u * w).astype(jnp.int32), 0, w - 1)
     row = jnp.clip(((1.0 - v) * h).astype(jnp.int32), 0, h - 1)
-    # single flat index: the 2-index gather lowers ~3x slower on TPU
+    # single flat index into the [H*W, 3] table
     return env_radiance.reshape(-1, 3)[row * w + col]
 
 
@@ -121,7 +121,7 @@ def sample_env_u(u, tables: EnvSamplingTables):
     """Draw directions ~ luminance of the dome from raw uniforms u [n, 2].
 
     Returns (dirs [n, 3], pdf [n]) with pdf in solid-angle measure.
-    Inverse-CDF via searchsorted (the TPU replacement of the reference's
+    Inverse-CDF via searchsorted (the batched replacement of the reference's
     hand-rolled device binary search, env_light.cuh:46-56).
     """
     h = tables.marginal_cdf.shape[0]

@@ -5,9 +5,7 @@ they say nothing about how the intersector scales -- the round-2
 verdict's missing item #4. `sphere_grid_scene` builds a deterministic
 Cornell-style room holding a grid of UV-spheres, tunable from a few
 thousand to hundreds of thousands of triangles, as a FlatScene directly
-(no glTF detour). Used by tests (oracle subsample) and bench.py
-(BENCH_SCENE=stress) to exercise the SUPER-gated dense kernel
-(ops/dense.py) where brute force stops being viable.
+(no glTF detour). Used by the tests, bench.py and chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -51,15 +49,17 @@ def sphere_grid_scene(grid=4, n_lat=16, n_lon=32,
                       env_radiance=None, textured=False) -> FlatScene:
     """A room of grid^3 spheres; ~2*grid^3*n_lat*n_lon triangles.
 
-    grid=4, 16x32 spheres  ->   ~63k faces
-    grid=5, 16x32          ->  ~124k faces
+    grid=2, 8x16 spheres   ->    1,804 faces
+    grid=4, 16x32          ->   61,452 faces
+    grid=5, 16x32          ->  120,012 faces
+    grid=0                 ->       12 faces (the room alone)
     Deterministic: materials cycle diffuse/metal/glass; one emissive
     ceiling quad lights the room (reference-estimator friendly).
 
     textured=True gives every diffuse material a procedural 64x64
     checker texture with real texcoords (quads tile 4x, spheres use
     their lat/lon parametrization) -- the textured-workload analogue of
-    BASELINE.json config[3] for bench.py (BENCH_SCENE=textured).
+    BASELINE.json config[3], and the default scene of bench.py.
     """
     rng = np.random.default_rng(7)
     verts, norms, uvs, faces, face_mtl, vert_obj = [], [], [], [], [], []
@@ -98,7 +98,7 @@ def sphere_grid_scene(grid=4, n_lat=16, n_lon=32,
          [e, s - 0.01, -e], [0, -1, 0], 4)
 
     # sphere grid
-    pitch = 2 * s * 0.8 / grid
+    pitch = 2 * s * 0.8 / max(grid, 1)     # grid=0: the bare room
     r = pitch * 0.3
     base = -s * 0.8 + pitch / 2
     for ix in range(grid):

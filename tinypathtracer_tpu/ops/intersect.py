@@ -2,10 +2,9 @@
 
 The reference implements per-thread scalar tests (Moller-Trumbore,
 geometry_queries.h:66-86; slab AABB test, geometry_queries.h:18-46)
-called from a divergent per-ray traversal loop. The TPU formulation is
-dense: a [rays x triangles] tile of simultaneous tests reduced with
-min/argmin -- regular, branch-free VPU work that XLA vectorizes onto
-8x128 lanes.
+called from a divergent per-ray traversal loop. The formulation here
+is dense: a [rays x triangles] tile of simultaneous tests reduced with
+min/argmin -- regular, branch-free array work that XLA vectorizes.
 
 `closest_hit_bruteforce` is the exact all-triangles oracle used for
 tiny scenes and as ground truth for BVH traversal tests; `ops.traverse`

@@ -2,7 +2,7 @@
 
 The reference keeps one mutable cuRAND state per pixel, re-seeded from
 wall-clock time every frame (sampler.h:10-110, path_tracer.cu:34-40,
-493-513) -- stateful and nondeterministic. The TPU design instead
+493-513) -- stateful and nondeterministic. This design instead
 derives every random draw from a deterministic (pixel, sample, bounce,
 use) key chain with `jax.random` threefry: bit-identical images for a
 given key, no state arrays, and trivially shardable because each ray's

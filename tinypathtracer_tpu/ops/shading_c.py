@@ -1,13 +1,10 @@
 """Component-form (SoA) shading math for the hot bounce loop.
 
-WHY THIS EXISTS (round-3 profiling, tools/kernel_lab.py methodology):
-on this TPU backend, broadcasting an [N] array into an [N, 3] vector
-(`cos_t[:, None] * normal` and friends) is a lane-relayout that runs at
-~1 G elem/s -- one `hemisphere_cosine_u` call measured 53 ms/bounce at
-1M rays, a `reflect` 13 ms, vs <1 ms of actual arithmetic. Keeping
-every per-lane quantity as a plain [N] array (vectors as three [N]
-components) eliminates those relayouts entirely: all shading math runs
-full-lane on (8,128)-tiled [N] registers.
+Every per-lane quantity is a plain [N] array (vectors as three [N]
+components) instead of an [N, 3] array, so no op broadcasts an [N]
+array into an [N, 3] vector (`cos_t[:, None] * normal` and friends).
+Whether this form still pays on the GPU is an open measurement
+(ROADMAP S5).
 
 Every function here is an ORDER-PRESERVING transcription of its [N, 3]
 counterpart in ops/sampling.py, ops/bsdf.py, utils/math3d.py and

@@ -1,27 +1,25 @@
 """Multi-host initialization + the cross-host mesh.
 
 The reference is strictly single-GPU single-process (SURVEY.md par. 2:
-no MPI/NCCL/socket code anywhere); this module is the TPU-native
+no MPI/NCCL/socket code anywhere); this module is the
 distribution layer it never had. Design per SURVEY.md par. 5
 "Distributed communication backend":
 
   * `initialize()` wraps `jax.distributed.initialize` with env-var
-    defaults (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID, or the
-    standard TPU pod metadata when running on real pods, where all
-    three args may be omitted);
+    defaults (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID);
   * after init, `jax.devices()` is the GLOBAL device list; build the
     ("data", "sample") mesh over it with parallel.mesh.make_mesh and
-    collectives compile onto ICI within a slice and DCN across hosts
-    automatically -- there is no user-level transport code, by design;
+    XLA compiles the collectives (NCCL between GPUs) -- there is no
+    user-level transport code, by design;
   * scene geometry is replicated per host (it is small); pixels shard
     over "data", spp over "sample"; parameter gradients psum over both
     (diff/invrender.make_sharded_train_step works unchanged on a
     multi-host mesh because shard_map + psum are transport-agnostic).
 
-Tested without TPU hardware by a 2-process CPU loopback
+Tested without a second host by a 2-process CPU loopback
 (tests/test_distributed.py): two local processes, 4 virtual CPU
-devices each, one global psum + a sharded gradient step over DCN
-(loopback TCP).
+devices each, one global psum + a sharded gradient step over loopback
+TCP.
 """
 
 from __future__ import annotations
@@ -36,8 +34,7 @@ def initialize(coordinator_address: Optional[str] = None,
     """Initialize jax.distributed for multi-host rendering/training.
 
     Call ONCE per process, before any other jax API touches a backend.
-    On TPU pods all arguments may be None (cluster autodetection); off
-    pod, pass them or set COORDINATOR_ADDRESS / NUM_PROCESSES /
+    Pass the arguments or set COORDINATOR_ADDRESS / NUM_PROCESSES /
     PROCESS_ID environment variables.
     """
     import jax

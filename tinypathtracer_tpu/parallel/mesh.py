@@ -1,19 +1,20 @@
 """Device meshes for distributed rendering.
 
 The reference has no multi-device story at all (SURVEY.md par. 2: its
-only parallelism is single-GPU SIMT). The TPU design scales over a
+only parallelism is single-GPU SIMT). This design scales over a
 `jax.sharding.Mesh` with two logical axes:
 
-  * "data"   -- pixel/ray batches (the DP axis: each chip owns a slice
-                of the film, scene + BVH replicated, no communication
-                in the forward pass)
-  * "sample" -- samples-per-pixel (the "TP/SP analogue": chips render
+  * "data"   -- pixel/ray batches (the DP axis: each device owns a
+                slice of the film, scene + BVH replicated, no
+                communication in the forward pass)
+  * "sample" -- samples-per-pixel (the "TP/SP analogue": devices render
                 disjoint spp slices of the SAME pixels and psum the
-                radiance accumulator over ICI)
+                radiance accumulator)
 
 Multi-host runs initialize jax.distributed outside and simply see more
-devices; collectives compile onto ICI within a slice and DCN across
-hosts -- there is no user-level NCCL equivalent to manage.
+devices; XLA compiles the collectives (NCCL between GPUs), so there is
+no transport code to manage. The cards of one host are joined all to
+all, so the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ def make_mesh(n_data: Optional[int] = None, n_sample: int = 1,
 
     n_data defaults to (device_count // n_sample). A (N, 1) mesh is
     pure pixel DP; (N/2, 2) additionally splits spp in half across
-    pairs of chips.
+    pairs of devices.
     """
     devices = list(devices if devices is not None else jax.devices())
     if n_data is None:

@@ -3,9 +3,8 @@
 Forward pass: pixels shard over "data", spp shards over "sample", the
 scene/BVH pytree is replicated (it is tiny next to the ray state; the
 reference's scene also lives whole on its one GPU). The only collective
-is a `psum` of the radiance accumulator over the "sample" axis -- it
-rides ICI and overlaps with the tail of the bounce loop under XLA's
-scheduler. With n_sample == 1 the forward pass is communication-free.
+is a `psum` of the radiance accumulator over the "sample" axis, which
+XLA's scheduler can overlap with the tail of the bounce loop. With n_sample == 1 the forward pass is communication-free.
 
 This is the component table's DP / "TP-SP analogue" row (SURVEY.md
 par. 2): CUDA grid over pixels -> pixel shards; nothing -> spp shards.
@@ -64,7 +63,7 @@ def render_frame_sharded(scene: FlatScene, cfg: RenderConfig, key, mesh: Mesh):
         off = lax.axis_index(SAMPLE_AXIS) * spp_local
         rad = rend.render_pixel_ids(state, cfg, pix_shard, key,
                                     spp=spp_local, sample_offset=off)
-        # radiance accumulator all-reduce over ICI (the gradient/radiance
+        # radiance accumulator all-reduce (the gradient/radiance
         # psum row of SURVEY.md par. 2's parallelism table)
         return lax.psum(rad, SAMPLE_AXIS)
 

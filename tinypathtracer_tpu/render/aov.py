@@ -1,6 +1,6 @@
 """AOV / debug render modes.
 
-TPU equivalents of the reference's debug renders:
+Equivalents of the reference's debug renders:
 
   * normal  -- the RENDER_NORMAL compile path (path_tracer.cu:13,
     322-342): first-hit interpolated normal, per-component ABSOLUTE

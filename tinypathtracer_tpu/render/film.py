@@ -2,7 +2,7 @@
 
 Reference: `copyToFB` (path_tracer.cu:451-471) divides the accumulated
 radiance by spp, clamps to [0, 255] uchar and flips vertically into the
-Vulkan framebuffer. There is no window on a TPU host, so the film
+Vulkan framebuffer. The renderer runs headless, so the film
 writes PNG / returns numpy instead (the Vulkan display engine,
 vkEngine.cu, is deliberately dropped -- see SURVEY.md L6).
 """

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from tinypathtracer_tpu.utils.math3d import vnormalize
 
@@ -31,7 +32,7 @@ def camera_rays_u(u, cam_to_world, yfov, aspect, px, py, width, height):
     d_cam = jnp.stack(
         [sx - 0.5 * sensor_w, sy - 0.5 * sensor_h, -jnp.ones_like(sx)], axis=-1)
     rot = cam_to_world[:3, :3]
-    d = vnormalize(d_cam @ rot.T)
+    d = vnormalize(jnp.matmul(d_cam, rot.T, precision=lax.Precision.HIGHEST))
     o = jnp.broadcast_to(cam_to_world[:3, 3], d.shape)
     return o, d
 

@@ -7,7 +7,7 @@ system: scene, resolution, spp, depth, estimator mode, intersector and
 sharding are all runtime flags.
 
     python -m tinypathtracer_tpu.tools.render_cli \
-        --scene /root/reference/input/box.gltf --out /tmp/box.png \
+        --scene scene.gltf --out scene.png \
         --width 512 --height 512 --spp 32
 """
 
@@ -21,7 +21,7 @@ import time
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tinypathtracer-tpu",
-                                description="TPU-native differentiable path tracer")
+                                description="differentiable path tracer")
     p.add_argument("--scene", required=True, help=".gltf scene file")
     p.add_argument("--out", default="out.png", help="output PNG path")
     p.add_argument("--env", default=None,
@@ -31,11 +31,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spp", type=int, default=64)
     p.add_argument("--depth", type=int, default=8)
     p.add_argument("--mode", choices=["reference", "physical"], default="reference")
-    # default matches config.RenderConfig: "dense" is the fast TPU path
-    # for reference-scale scenes; "bvh" is the tree-walk oracle,
-    # "bruteforce" the Moller-Trumbore oracle.
+    # default matches config.RenderConfig: "dense" (resolves to "bvh"
+    # for large scenes, renderer.resolve_intersector); "bruteforce" is
+    # the Moller-Trumbore oracle.
     p.add_argument("--intersector",
-                   choices=["dense", "bvh", "packet", "bruteforce"],
+                   choices=["dense", "bvh", "bruteforce"],
                    default="dense")
     p.add_argument("--bvh-source", choices=["device", "host"],
                    default="device",

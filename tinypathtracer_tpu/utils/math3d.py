@@ -6,7 +6,7 @@ plus device-side (jnp) vector helpers used inside kernels.
 The reference implements these as C++ header math (vec.h/mat.h/quat.h/
 transform.h): column-major Mat4, TRS composition Translate*Rotate*Scale
 (transform.h:28-33), quaternion->Mat3 (quat.h:52-69), and a
-cofactor-expansion Mat4 inverse. On TPU the per-vertex/per-ray math is
+cofactor-expansion Mat4 inverse. Here the per-vertex/per-ray math is
 batched over the leading axis, so all of these become (…, 3)/(4, 4)
 array ops; there is no hand-rolled rsqrt (vec.h:25-38) because XLA's
 `lax.rsqrt` already lowers to the hardware instruction.
@@ -111,14 +111,18 @@ def vnormalize(a, eps=0.0):
     return a * lax.rsqrt(jnp.maximum(n2, eps))
 
 
+def transform_dirs(m4, dirs):
+    """Apply a 4x4 (or batched) to (..., 3) directions (w=0).
+
+    Elementwise multiply-adds, not a matmul: a float32 matmul may run in
+    TF32 on a GPU, which would move hit points."""
+    return (m4[..., :3, 0] * dirs[..., 0:1] + m4[..., :3, 1] * dirs[..., 1:2]
+            + m4[..., :3, 2] * dirs[..., 2:3])
+
+
 def transform_points(m4, pts):
     """Apply a 4x4 (or batched [..., 4, 4]) to (..., 3) points (w=1)."""
-    return jnp.einsum("...ij,...j->...i", m4[..., :3, :3], pts) + m4[..., :3, 3]
-
-
-def transform_dirs(m4, dirs):
-    """Apply a 4x4 (or batched) to (..., 3) directions (w=0)."""
-    return jnp.einsum("...ij,...j->...i", m4[..., :3, :3], dirs)
+    return transform_dirs(m4, pts) + m4[..., :3, 3]
 
 
 def reflect(d, n):
